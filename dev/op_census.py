@@ -1,12 +1,10 @@
 """Census of the wrapped-step emission: jaxpr equation counts by primitive.
 
-Traces soa_env.wrapped_step_rows_xla (the SAME program the pallas kernel
-lowers — value algebra is shape-agnostic) for the flat env and prints the
-primitive histogram. Used to measure op-count reductions (trace-time CSE,
-dead-row elimination) — docs/ROADMAP.md r4 "emission op census" baseline:
-~43k eqs (mul 21.5k, add 10.8k, sub 4.8k, neg 1.3k) before CSE.
+Traces soa_env.wrapped_step_tiles (the wrapped env-step emission) for
+the flat env and prints the primitive histogram. Used to measure op-count reductions
+(trace-time CSE, dead-row elimination).
 
-PUPPAX_CENSUS_CSE=off disables the CSE memo for the A/B.
+Usage: python dev/op_census.py
 """
 
 import collections
@@ -21,9 +19,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
+from puppax import backend  # noqa: E402
 from puppax.configs import get_config  # noqa: E402
 from puppax.env import PupperV3Env, soa_env  # noqa: E402
-from puppax.physics import soa  # noqa: E402
 
 
 def count_eqs(jaxpr, ctr):
@@ -39,10 +37,6 @@ def count_eqs(jaxpr, ctr):
 
 
 def main():
-    if os.environ.get("PUPPAX_CENSUS_CSE") == "off":
-        # disable the memo: emissions run exactly as pre-r5
-        soa._CSE_ENABLED = False
-
     env = PupperV3Env(
         path=None,
         reward_config=get_config(),
@@ -53,19 +47,20 @@ def main():
     )
     core = env._cv_core
     s, es = core._s, core._es
-    B = 8
+    nb = 1
     n_dr = sum(n for _, n in s.dr_rows.values())
-    nfirst = s.nq + s.nv + es.hist + es.npriv
 
     def step(q, v, act, env_r, noi, dr, first, wrap):
-        return soa_env.wrapped_step_rows_xla(
+        return soa_env.wrapped_step_tiles(
             s, es, env._n_substeps, 1000, q, v, act, env_r, noi, dr,
             first, wrap,
         )
 
     shapes = [
-        (s.nq, B), (s.nv, B), (s.nu, B), (es.nenv_rows, B),
-        (es.nnoise_rows, B), (n_dr, B), (nfirst, B), (2, B),
+        (n, nb, backend.LANE) for n in (
+            s.nq, s.nv, s.nu, es.nenv_rows, es.nnoise_rows, n_dr,
+            soa_env.first_rows(s, es), 2,
+        )
     ]
     args = [jnp.zeros(sh, jnp.float32) for sh in shapes]
     jaxpr = jax.make_jaxpr(step)(*args)

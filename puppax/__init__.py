@@ -1,4 +1,4 @@
-"""puppax — a TPU-native quadruped locomotion RL framework.
+"""puppax — a JAX quadruped locomotion RL framework.
 
 A from-scratch JAX/XLA re-design of the capability set of the reference
 ``pupperv3_mjx`` package (rishihahs/pupperv3-mjx): a pure-JAX fixed-topology

@@ -133,9 +133,10 @@ class TrainConfig:
     activation: str = "elu"  # must be in utils.activation_fn_map (export ABI)
     policy_hidden_layer_sizes: Tuple[int, ...] = (128, 128, 128, 128)
     value_hidden_layer_sizes: Tuple[int, ...] = (256, 256, 256, 256, 256)
-    # MXU precision of the VALUE network's dots (highest|high|default).
-    # The policy stays pinned to HIGHEST (kernel-lane + deployment-ABI
-    # parity); the value net has no such constraint and dominates the
+    # matmul precision of the VALUE network's dots (highest|high|default;
+    # on a GPU 'high'/'default' allow TF32). The policy stays pinned to
+    # HIGHEST (fast-lane + deployment-ABI parity); the value net has no
+    # such constraint and dominates the
     # learner's FLOPs, so 'high'/'default' trade value-estimate precision
     # for SGD throughput (measure eval quality before adopting).
     value_precision: str = "highest"

@@ -3,16 +3,28 @@
 Values are the reference training defaults, verbatim
 (/root/reference/pupperv3_mjx/config.py:19-64) — these are tuned
 hyperparameters, i.e. data the framework must reproduce for parity.
-Exposed as an ml_collections.ConfigDict so downstream code can use the
-same ``config.rewards.scales[k]`` access pattern.
+Exposed as nested attribute dicts so downstream code can use the
+reference's ``config.rewards.scales[k]`` / ``config.rewards.tracking_sigma``
+access patterns.
 """
 
-from ml_collections import config_dict
+
+class AttrDict(dict):
+    """A dict whose keys are also readable and writable as attributes."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __setattr__(self, name, value):
+        self[name] = value
 
 
-def get_config() -> config_dict.ConfigDict:
+def get_config() -> AttrDict:
     """Reward config for the Pupper v3 joystick-locomotion task."""
-    scales = config_dict.ConfigDict(
+    scales = AttrDict(
         dict(
             # tracking rewards: exp(-error^2 / tracking_sigma)
             tracking_lin_vel=1.5,
@@ -39,5 +51,5 @@ def get_config() -> config_dict.ConfigDict:
             body_collision=-1.0,
         )
     )
-    rewards = config_dict.ConfigDict(dict(scales=scales, tracking_sigma=0.25))
-    return config_dict.ConfigDict(dict(rewards=rewards))
+    rewards = AttrDict(scales=scales, tracking_sigma=0.25)
+    return AttrDict(rewards=rewards)

@@ -1,6 +1,6 @@
 """Env runtime base: the State pytree and the Env interface (L3).
 
-TPU-native replacement for ``brax.envs.base`` (PipelineEnv/State) that the
+Replacement for ``brax.envs.base`` (PipelineEnv/State) that the
 reference builds on (/root/reference/pupperv3_mjx/environment.py:7,344).
 State mirrors the brax State surface the reference code touches:
 (pipeline_state, obs, reward, done, metrics, info) plus ``.replace`` and
@@ -13,7 +13,7 @@ from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from puppax import struct
 
 from puppax.physics.pipeline import PhysicsState
 

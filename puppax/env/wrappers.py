@@ -1,6 +1,6 @@
 """Batch/episode/auto-reset env wrappers (L3 runtime).
 
-TPU-native re-implementation of the brax training wrappers that
+Re-implementation of the brax training wrappers that
 ``brax.training.agents.ppo.train`` applied around the reference env
 (SURVEY §1 L3): episode bookkeeping with truncation, env-batch vmap
 (optionally with per-env randomized model leaves — the reference

@@ -15,10 +15,11 @@ from __future__ import annotations
 import os
 import xml.etree.ElementTree as ET
 
-REFERENCE_XML = os.environ.get(
-    "PUPPAX_REFERENCE_XML", "/root/reference/test/test_pupper_model.xml"
-)
-_BUNDLED_XML = os.path.join(os.path.dirname(__file__), "pupper_v3.xml")
+BUNDLED_XML = os.path.join(os.path.dirname(__file__), "pupper_v3.xml")
+# the mesh-bearing reference MJCF (a pupperv3-mjx checkout's
+# test/test_pupper_model.xml) when PUPPAX_REFERENCE_XML names one; the
+# bundled mesh-free copy otherwise
+REFERENCE_XML = os.environ.get("PUPPAX_REFERENCE_XML", BUNDLED_XML)
 
 
 def strip_meshes(tree: ET.ElementTree) -> ET.ElementTree:
@@ -40,8 +41,8 @@ def strip_meshes(tree: ET.ElementTree) -> ET.ElementTree:
 
 def pupper_xml_tree() -> ET.ElementTree:
     """ElementTree of the physics-equivalent (mesh-free) Pupper v3 model."""
-    if os.path.exists(_BUNDLED_XML):
-        return ET.parse(_BUNDLED_XML)
+    if os.path.exists(BUNDLED_XML):
+        return ET.parse(BUNDLED_XML)
     tree = ET.parse(REFERENCE_XML)
     return strip_meshes(tree)
 
@@ -55,5 +56,5 @@ def write_bundled_asset() -> str:
     """Materialize the mesh-free model into the package (build-time helper)."""
     tree = ET.parse(REFERENCE_XML)
     strip_meshes(tree)
-    tree.write(_BUNDLED_XML, encoding="unicode")
-    return _BUNDLED_XML
+    tree.write(BUNDLED_XML, encoding="unicode")
+    return BUNDLED_XML

@@ -2,7 +2,7 @@
 
 XLA's generic Cholesky lowers tiny (nv x nv) factorizations into enormous
 blocked loop nests (~50k HLO instructions for 18x18 under vmap) that
-dominate both compile and run time on CPU and TPU. For the engine's
+dominate both compile and run time. For the engine's
 fixed, tiny, well-conditioned SPD systems (mass matrix + armature;
 Newton Hessian) a fully unrolled left-looking Cholesky compiles to a few
 hundred fused elementwise ops and vmaps cleanly over the env batch.
@@ -23,9 +23,8 @@ import numpy as np
 def mv(A: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """A @ x for a small (n, m) matrix as a fused multiply-reduce.
 
-    On TPU, small matmuls at f32 precision lower to 6-pass operand-split
-    MXU products that re-read their operands per pass; the broadcast form
-    fuses into one exact-f32 VPU kernel instead.
+    The broadcast form fuses into one exact-f32 elementwise kernel, with
+    no matmul precision to pin.
     """
     return jnp.sum(A * x[None, :], axis=-1)
 

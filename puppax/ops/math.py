@@ -2,7 +2,7 @@
 
 All functions are pure, jit/vmap-friendly, and written for single
 (unbatched) operands — batching is applied by ``jax.vmap`` at the
-pipeline level so the env-batch axis carries the TPU parallelism.
+pipeline level so the env-batch axis carries the parallelism.
 
 Conventions:
   * quaternions are (w, x, y, z), unit norm
@@ -183,9 +183,9 @@ def transform_inertia_batch(
 ) -> jnp.ndarray:
     """Batched (n, 6, 6) spatial inertias — a handful of dense einsums
     instead of per-body scalar assembly (jnp.array-of-scalars + jnp.block
-    explode into hundreds of MB of HBM traffic under a 4k env vmap)."""
+    explode into many small ops under a 4k env vmap)."""
     dtype = ipos.dtype
-    # I3[n,i,k] = sum_j imat[n,i,j] d[n,j] imat[n,k,j] (fused, no MXU)
+    # I3[n,i,k] = sum_j imat[n,i,j] d[n,j] imat[n,k,j] (fused, no matmul)
     I3 = jnp.sum(
         imat[..., :, None, :]
         * diag_inertia[..., None, None, :]

@@ -1,9 +1,7 @@
 """Gather/scatter-free row selection for STATIC index sets.
 
-TPU lowering of gather/scatter under a large env ``vmap`` is pathological
-(batched gathers become multi-GB HBM traffic — measured on the collision
-module: 24.3 GB -> 0.1 GB per 4096-env call after switching to these).
-All physics-topology indices (body tree levels, dof addresses, pair
+Batched gathers/scatters under a large env ``vmap`` move far more memory
+than the few rows they select. All physics-topology indices (body tree levels, dof addresses, pair
 tables) are static model data, so every ``x[idx]`` / ``x.at[idx].set`` /
 ``x.at[idx].add`` on the hot path can be a constant one-hot contraction
 instead: tiny dense (k, n) matmuls that XLA fuses freely.
@@ -22,11 +20,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# One-hot contractions MUST run at full f32: TPU MXU matmuls default to
-# bf16 and round BOTH operands, so even a multiply-by-exactly-1.0
-# selection would silently quantize the selected values to bf16
-# (measured: 4.7e-4 qpos error per physics step -> NaN blowups within a
-# few env steps).
+# One-hot contractions MUST run at full f32: a reduced-precision matmul
+# (bf16, or TF32 on a GPU) rounds BOTH operands, so even a
+# multiply-by-exactly-1.0 selection would silently quantize the selected
+# values (qpos errors that NaN the physics within a few env steps).
 _P = jax.lax.Precision.HIGHEST
 
 
@@ -49,10 +46,10 @@ def _as_tuple(idx) -> tuple:
     return tuple(int(i) for i in np.asarray(idx).reshape(-1))
 
 
-# Selection backend: 'einsum' contracts on the MXU at HIGHEST precision
-# (6-pass f32); 'vpu' uses broadcast-where-sum on the VPU (exact by
-# construction). Both are exact; which is faster depends on shapes —
-# switchable for benchmarking via PUPPAX_SELECT_IMPL.
+# Selection backend: 'einsum' contracts as a matmul at HIGHEST precision;
+# 'vpu' uses an elementwise broadcast-where-sum (exact by construction).
+# Both are exact; which is faster depends on shapes — switchable for
+# benchmarking via PUPPAX_SELECT_IMPL.
 import os as _os
 
 _IMPL = _os.environ.get("PUPPAX_SELECT_IMPL", "einsum")

@@ -1,12 +1,13 @@
 """Device mesh, shardings, and multi-host bootstrap (the distrib layer).
 
 The reference had no distributed backend in-repo: brax PPO ``pmap``-ed over
-local devices with implicit ``psum`` (SURVEY §2.4). The TPU-native design
-replaces pmap with a global ``jax.sharding.Mesh`` over all chips and
+local devices with implicit ``psum`` (SURVEY §2.4). This design replaces
+pmap with a global ``jax.sharding.Mesh`` over all devices and
 ``jit``-with-``NamedSharding`` semantics: the env batch is sharded over the
-``'env'`` axis (data parallelism over ICI within a slice, DCN across
-slices), parameters are replicated, and XLA inserts the gradient
-all-reduce — no hand-written collectives on the hot path.
+``'env'`` axis (data parallelism; every GPU of a host reaches every other
+over NVLink, so the 1-D mesh needs no topology), parameters are
+replicated, and XLA inserts the gradient all-reduce — no hand-written
+collectives on the hot path.
 """
 
 from __future__ import annotations

@@ -10,13 +10,11 @@ evaluated every step with fixed shapes; the reference's MJX contact caps
 utils.set_mjx_custom_options) are applied as top-k selections by
 penetration depth.
 
-TPU note: everything here is deliberately **gather/scatter-free**. Pair
-selections from the kinematics tables use constant one-hot einsums (the
-pair lists are static model topology), and top-k is a short sequential
-argmin with one-hot extraction — ``jax.lax.top_k`` + dynamic gathers
-lower to multi-GB HBM traffic under a 4k env vmap on TPU (measured:
-collide dropped from 24.3 GB to ~0.1 GB of bytes accessed per 4096-env
-call after this rewrite).
+Everything here is deliberately **gather/scatter-free**. Pair selections
+from the kinematics tables use constant one-hot einsums (the pair lists
+are static model topology), and top-k is a short sequential argmin with
+one-hot extraction instead of ``jax.lax.top_k`` + dynamic gathers under
+the env vmap (ops/select.py).
 
 Contact conventions match MuJoCo: ``dist`` < 0 means penetration, the
 frame's first row is the normal pointing from geom1 into geom2, ``pos`` is
@@ -60,7 +58,7 @@ _PAD_DIST = 1e10
 def _take(x: jnp.ndarray, idx: Sequence[int]) -> jnp.ndarray:
     """Select rows of a traced (n, ...) array by STATIC indices via a
     constant one-hot einsum — lowers to one dense contraction instead of a
-    gather (gathers under a large env vmap are pathological on TPU)."""
+    gather under the env vmap (ops/select.py)."""
     idx = np.asarray(idx, np.int64)
     sel = np.zeros((len(idx), x.shape[0]), np.float32)
     sel[np.arange(len(idx)), idx] = 1.0
@@ -266,11 +264,11 @@ def _capsule_capsule(m: RobotModel, kin: Kinematics, g1, g2):
 def _hfield_sphere(m: RobotModel, kin: Kinematics, g1, g2):
     """Batched heightfield(g1) vs sphere(g2).
 
-    TPU-native bilinear-patch narrowphase: the elevation lookup and surface
+    Gather-free bilinear-patch narrowphase: the elevation lookup and surface
     slope at the sphere's footprint are quadratic forms ``w_rᵀ H w_c`` with
     the interpolation weights folded into row/column one-hot vectors — two
-    small dense contractions instead of dynamic gathers (gathers under a
-    large env vmap are pathological on TPU, see module docstring). The
+    small dense contractions instead of dynamic gathers (see module
+    docstring). The
     contact is the tangent plane of the bilinear patch at the footprint.
     On cells whose 4 corners are coplanar this equals MuJoCo's
     triangulated-prism narrowphase exactly; on saddle cells it is the

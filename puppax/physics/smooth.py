@@ -7,7 +7,7 @@ upper / lower links — are advanced with one batched quaternion/spatial op
 per level instead of per-body unrolled ops. This cuts the op count ~4x,
 which is what determines both XLA compile time and the per-fusion dispatch
 cost that dominates tiny-model physics; the env batch axis is added by
-``jax.vmap`` on top and carries the TPU parallelism.
+``jax.vmap`` on top and carries the parallelism.
 
 Stage-for-stage these reproduce (independently, from the published MuJoCo
 computation model) mj_kinematics, mj_comPos, mj_comVel, mj_crb, mj_rne and
@@ -311,8 +311,8 @@ def crb(m: RobotModel, com: ComQuantities) -> jnp.ndarray:
         m.nbody, m.nv, m.body_parentid, m.body_jntid, m.jnt_type,
         m.jnt_dofadr, m.jnt_bodyid, m.njnt,
     )
-    # fused multiply-reduce forms (see ops.linalg.mv): exact f32 without
-    # the 6-pass MXU expansion of small matmuls
+    # fused multiply-reduce forms (see ops.linalg.mv): exact f32 with no
+    # matmul precision to pin
     F = jnp.sum(take_rows(crb_inert, dof_body) * com.cdof[:, None, :], axis=-1)
     W = jnp.sum(F[:, None, :] * com.cdof[None, :, :], axis=-1)
     W = W * jnp.asarray(anc, com.cdof.dtype)

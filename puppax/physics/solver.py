@@ -32,9 +32,8 @@ from puppax.physics.constraint import EfcData
 
 
 # Tiny-matrix products as broadcast-multiply-reduce: XLA fuses these into
-# single exact-f32 VPU kernels, avoiding the 6-pass operand-split HIGHEST
-# matmuls on the MXU (measured: the Hessian build + solve dropped from
-# 674 MB to ~80 MB of HBM traffic per 4096-env call).
+# single exact-f32 elementwise kernels instead of HIGHEST-precision
+# batched matmuls over tiny matrices.
 def _mv(A: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """A @ x for small (n, m) A."""
     return jnp.sum(A * x[None, :], axis=-1)
@@ -112,8 +111,8 @@ def solve(
         #                       + sum_friction clip(D (jar + a jv), ±floss) jv
         # The exact minimizer is the root of phi'. We locate the linear
         # segment containing the sign change by evaluating phi' at every
-        # activity breakpoint (O(nefc^2) fused elementwise work — cheaper
-        # than an iterative search on TPU and bit-deterministic), then solve
+        # activity breakpoint (O(nefc^2) fused elementwise work,
+        # bit-deterministic), then solve
         # the linear segment in closed form. States where MuJoCo C's capped
         # iterative search converges match this to machine precision.
         jv = _mv(efc.J, dx)

@@ -1,6 +1,6 @@
 """Rollout generation and policy evaluation.
 
-TPU-native equivalent of the brax acting layer the reference's PPO used
+Equivalent of the brax acting layer the reference's PPO used
 (SURVEY §3.4): the rollout is a ``lax.scan`` over env steps under jit, so
 an entire unroll (policy apply + batched physics + reward) is one fused
 XLA program; the evaluator runs full episodes on a separate batched eval
@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from puppax import struct
 
 from puppax.env.base import State
 

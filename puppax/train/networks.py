@@ -1,8 +1,8 @@
-"""Policy/value MLP networks and inference-fn factory (flax).
+"""Policy/value MLP networks and inference-fn factory (plain JAX).
 
-TPU-native re-implementation of the PPO network stack the reference
-trained with (brax make_ppo_networks / make_inference_fn — SURVEY §2.2).
-Param-tree layout is part of the deployment ABI: policy params are a flax
+Re-implementation of the PPO network stack the reference trained with
+(brax make_ppo_networks / make_inference_fn — SURVEY §2.2).
+Param-tree layout is part of the deployment ABI: policy params are a
 dict ``{"params": {"hidden_0": {"kernel", "bias"}, ...}}`` whose final
 layer emits 2*action_size (loc, scale) logits — exactly what
 ``export.convert_params`` consumes (/root/reference/pupperv3_mjx/
@@ -11,8 +11,8 @@ export.py:30-41) — and the policy factory signature
 the reference's callback usage (utils.py:242).
 
 MLPs here are tiny (obs ~540 -> a few hundred wide); per-device batches of
-thousands of envs turn each layer into one MXU-shaped (B, in) @ (in, out)
-matmul, which is the fast path — no custom kernels needed for the policy.
+thousands of envs turn each layer into one (B, in) @ (in, out) matmul,
+which XLA hands to cuBLAS — no custom kernels needed for the policy.
 """
 
 from __future__ import annotations
@@ -21,8 +21,7 @@ from typing import Any, Callable, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
-from flax import struct
+from puppax import struct
 
 from puppax.train import running_statistics
 from puppax.train.distribution import NormalTanhDistribution
@@ -40,34 +39,48 @@ class PPONetworkParams:
     value: Params
 
 
-class MLP(nn.Module):
-    """Plain MLP with brax-compatible layer naming (hidden_i)."""
+class MLP:
+    """Plain MLP with brax-compatible parameter naming: ``init(key, x)``
+    returns ``{"params": {"hidden_i": {"kernel": (in, out), "bias": (out,)}}}``
+    with lecun-uniform kernels and zero biases; ``apply(params, x)``."""
 
-    layer_sizes: Sequence[int]
-    activation: ActivationFn = nn.swish
-    activate_final: bool = False
-    kernel_init: Callable = jax.nn.initializers.lecun_uniform()
-    precision: Any = jax.lax.Precision.HIGHEST
+    def __init__(
+        self,
+        layer_sizes: Sequence[int],
+        activation: ActivationFn = jax.nn.swish,
+        activate_final: bool = False,
+        kernel_init: Callable = jax.nn.initializers.lecun_uniform(),
+        precision: Any = jax.lax.Precision.HIGHEST,
+    ):
+        self.layer_sizes = tuple(layer_sizes)
+        self.activation = activation
+        self.activate_final = activate_final
+        self.kernel_init = kernel_init
+        self.precision = precision
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
+    def init(self, key: jax.Array, x: jnp.ndarray) -> Params:
+        params = {}
+        fan_in = x.shape[-1]
+        keys = jax.random.split(key, len(self.layer_sizes))
         for i, size in enumerate(self.layer_sizes):
-            # HIGHEST (default): f32-accurate MXU passes. The TPU default
-            # (bf16 one-pass) would silently WEAKEN numerics vs the
-            # reference (brax MLPs run plain f32 on GPU), and the rollout
-            # fast lane / fused unroll kernel compute their policy dots in
-            # f32 — pinning the POLICY lanes to HIGHEST keeps policy math
-            # identical across the standard lane, the tile lanes, and
-            # the C++ deployment runtime (f64 replay, export/params.py).
-            # The VALUE network has no kernel-lane or deployment
-            # counterpart, so its precision is a tunable (see
-            # make_ppo_networks value_precision): HIGHEST runs ~6 MXU
-            # passes per dot and the value net dominates the learner's
-            # FLOPs at default sizes (5x256 vs the policy's 4x128).
-            x = nn.Dense(
-                size, name=f"hidden_{i}", kernel_init=self.kernel_init,
-                precision=self.precision,
-            )(x)
+            params[f"hidden_{i}"] = {
+                "kernel": self.kernel_init(keys[i], (fan_in, size), jnp.float32),
+                "bias": jnp.zeros((size,), jnp.float32),
+            }
+            fan_in = size
+        return {"params": params}
+
+    def apply(self, params: Params, x: jnp.ndarray) -> jnp.ndarray:
+        layers = params["params"]
+        for i in range(len(self.layer_sizes)):
+            layer = layers[f"hidden_{i}"]
+            # HIGHEST (default): full-f32 products, never TF32. The policy
+            # must compute identically on the standard lane, the rollout
+            # fast lane (rollout.policy_rows) and the C++ deployment
+            # runtime (f64 replay, export/params.py). The VALUE network
+            # has no such counterpart, so its precision is a tunable (see
+            # make_ppo_networks value_precision).
+            x = jnp.dot(x, layer["kernel"], precision=self.precision) + layer["bias"]
             if i != len(self.layer_sizes) - 1 or self.activate_final:
                 x = self.activation(x)
         return x
@@ -88,12 +101,12 @@ class PPONetworks:
     # policy MLP in feature-major layout and needs it explicitly;
     # puppax/env/rollout.py)
     policy_activation: ActivationFn = struct.field(
-        pytree_node=False, default=nn.swish
+        pytree_node=False, default=jax.nn.swish
     )
 
 
 def _make_network(
-    module: nn.Module,
+    module: MLP,
     obs_size: int,
     normalizer_aware: bool = True,
 ) -> FeedForwardNetwork:
@@ -113,7 +126,7 @@ def make_ppo_networks(
     action_size: int,
     policy_hidden_layer_sizes: Sequence[int] = (32, 32, 32, 32),
     value_hidden_layer_sizes: Sequence[int] = (256, 256, 256, 256, 256),
-    activation: ActivationFn = nn.swish,
+    activation: ActivationFn = jax.nn.swish,
     privileged_size: int = 0,
     value_precision: str = "highest",
 ) -> PPONetworks:

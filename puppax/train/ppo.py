@@ -1,6 +1,6 @@
 """PPO learner — mesh-sharded, single jit region per training epoch.
 
-TPU-native replacement for the brax PPO trainer the reference invoked
+Replacement for the brax PPO trainer the reference invoked
 (SURVEY §3.4): same algorithm family (clipped surrogate + GAE + running
 obs normalization + entropy bonus, truncation-aware bootstrapping) and the
 same callback/param surface (``progress_fn(step, metrics)``,
@@ -11,7 +11,7 @@ different parallelization design:
 * brax ``pmap``s the learner over local devices with explicit ``psum``;
   here the whole training epoch is ONE ``jit`` region with
   ``NamedSharding`` annotations over a global ``Mesh(('env',))`` — the env
-  batch is sharded over all chips (ICI within a slice, DCN across), params
+  batch is sharded over all devices, params
   are replicated, and XLA GSPMD inserts the gradient all-reduce and the
   minibatch-shuffle collectives. This scales past one host with no code
   change (``jax.distributed`` + a bigger mesh).
@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from puppax import struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from puppax.env import wrappers
@@ -234,15 +234,10 @@ def train(
             env, mesh=device_mesh, axis_name=mesh_lib.ENV_AXIS
         )
     if jax.process_index() == 0:
-        fused_txt = ""
-        if fast_lane is not None:
-            fused_txt = (
-                f", fused-unroll={'ON' if fast_lane.use_fused(unroll_length) else 'OFF'}"
-            )
         print(
             f"[puppax.ppo] rollout fast lane: "
             f"{'ON' if lane_ok else 'OFF'} ({lane_reason}; "
-            f"devices={num_devices}{fused_txt})",
+            f"devices={num_devices})",
             flush=True,
         )
 
@@ -768,8 +763,8 @@ def train(
         all_metrics = metrics
         progress_fn(current_step, metrics)
         policy_params_fn(current_step, make_policy, _callback_params(training_state))
-        # only one writer: concurrent orbax saves into a shared directory
-        # from every pod process race/corrupt (ADVICE r1)
+        # only one writer: concurrent saves into a shared directory from
+        # every process race/corrupt
         if checkpoint_dir is not None and jax.process_index() == 0:
             import os as _os
 

@@ -1,6 +1,6 @@
 """Running observation normalization statistics (Welford, device-parallel).
 
-TPU-native equivalent of the brax/acme running-statistics normalizer whose
+Equivalent of the brax/acme running-statistics normalizer whose
 ``mean``/``std`` fields form half of the PPO param tuple the reference
 checkpoints and exports (/root/reference/pupperv3_mjx/export.py:29,
 utils.py:242). The state layout keeps those field names so
@@ -9,14 +9,14 @@ utils.py:242). The state layout keeps those field names so
 Updates are exact streaming mean/variance over the batch; under a sharded
 mesh the batch statistics are computed by XLA reductions over the sharded
 axis (jnp.sum over a NamedSharding-annotated array lowers to a
-reduce+all-reduce over ICI) — no explicit pmean needed.
+reduce+all-reduce across devices) — no explicit pmean needed.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from puppax import struct
 
 
 @struct.dataclass

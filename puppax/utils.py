@@ -60,10 +60,9 @@ def apply_lagged_value(
 ) -> Tuple[jax.Array, jax.Array]:
     """Push new_value, then select the lag column by the one-hot weights —
     an elementwise multiply + depth-axis sum instead of ``jnp.take``
-    (batched dynamic gathers are pathological on TPU) and instead of an
-    einsum (r2's HIGHEST-precision einsum vmapped into a tiny batched GEMM
-    that alone cost ~35% of flat env-step throughput — the r4 bisect to
-    54e694e). 0/1 weights select exactly: each column is scaled by 0.0 or
+    (no batched dynamic gather) and instead of an einsum (a
+    HIGHEST-precision einsum vmaps into a tiny batched GEMM). 0/1 weights
+    select exactly: each column is scaled by 0.0 or
     1.0 and summing zeros is exact in f32."""
     buffer_newest_first = circular_buffer_push_front(buffer_newest_first, new_value)
     sampled = jnp.sum(

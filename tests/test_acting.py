@@ -4,7 +4,7 @@ active-window masking after done, episode length accounting."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from puppax import struct
 
 from puppax.env.base import Env, State
 from puppax.train import acting

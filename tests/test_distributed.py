@@ -11,6 +11,8 @@ import sys
 import numpy as np
 import pytest
 
+from puppax import compile_cache
+
 
 def _free_port():
     s = socket.socket()
@@ -87,9 +89,7 @@ def test_two_process_training_via_cli(tmp_path):
         env["COORDINATOR_ADDRESS"] = coordinator
         env["NUM_PROCESSES"] = "2"
         env["PROCESS_ID"] = str(i)
-        env["PUPPAX_TEST_CACHE"] = os.environ.get(
-            "PUPPAX_TEST_CACHE", "/tmp/puppax_xla_cache"
-        )
+        env["JAX_COMPILATION_CACHE_DIR"] = compile_cache.cache_dir()
         procs.append(
             subprocess.Popen(
                 [

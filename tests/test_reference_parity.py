@@ -3,9 +3,12 @@ criterion, VERDICT r1 item 1).
 
 The oracle (tests/oracle_env/reference_env.py) is a literal transcription
 of /root/reference/pupperv3_mjx/environment.py:314-543 (+ rewards/utils/
-brax-math) driving the MuJoCo **C** engine on the reference's own
-test_pupper_model.xml — it shares zero code and zero model data with
-puppax. Both sides run f64 on CPU with identical PRNG streams (the env's
+brax-math) driving the MuJoCo **C** engine on the bundled
+puppax/model/pupper_v3.xml — the reference's test_pupper_model.xml with
+its render-only meshes stripped and its numerics unchanged. It shares
+zero code with puppax; the model file is shared, so a defect in that
+file would not show here (tests/test_mesh_model.py pins it against the
+mesh-bearing original when a reference checkout is present). Both sides run f64 on CPU with identical PRNG streams (the env's
 split order is part of the parity contract), so physics floating-point
 noise is the only divergence channel.
 
@@ -29,9 +32,10 @@ import pytest
 
 from puppax.configs import get_config
 from puppax.env import PupperV3Env
+from puppax.model.assets import BUNDLED_XML
 from tests.oracle_env.reference_env import ReferencePupperEnv
 
-REFERENCE_XML = "/root/reference/test/test_pupper_model.xml"
+REFERENCE_XML = BUNDLED_XML
 
 ENV_KWARGS = dict(
     action_scale=0.75,

@@ -1,21 +1,19 @@
 """Rollout fast lane (puppax/env/rollout.py): standard-lane parity.
 
-Strategy mirrors tests/test_soa_env.py: the pallas LOWERING is covered by
-the tpu-marked on-device leg; CPU tests validate every piece of the lane
+Strategy mirrors tests/test_soa_env.py: CPU tests validate every piece
+of the lane
 against the standard `AutoReset(Vmap(Episode(env)))` +
 ``acting.generate_unroll`` stack — the pre-drawn noise streams (exact),
 the feature-major policy apply (fp-tolerance), and the full unroll with
-the kernel program evaluated as plain XLA ops (`wrapped_step_rows_xla` —
-the same emission the kernel lowers).
+the env-step emission evaluated as XLA ops.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from puppax import backend
 from puppax.configs import get_config
 from puppax.env import PupperV3Env, rollout, wrappers
 from puppax.train import acting, networks as ppo_networks, running_statistics
@@ -27,11 +25,9 @@ EPISODE_LENGTH = 50
 
 @pytest.fixture(scope="module")
 def setup():
-    # default PUPPAX_SOA_ENV=auto: the env still builds the _cv_core the
-    # fast lane introspects, while the standard reference lane keeps the
-    # XLA fallback on CPU (mode 'force' would push the reference onto the
-    # pallas kernel, which CPU can only interpret)
-    # one physics substep: the xla-rows emission compiles/evals quickly
+    # the env builds the _cv_core the fast lane introspects, while the
+    # standard reference lane keeps the per-env engine on CPU
+    # (backend.step_path); one physics substep: the xla-rows emission compiles/evals quickly
     env = PupperV3Env(
         path=None,
         reward_config=get_config(),
@@ -65,44 +61,35 @@ def _reset(wrapped):
     return jax.jit(wrapped.reset)(rngs)
 
 
-def test_supported_gating(setup, monkeypatch):
+def test_supported_gating(setup):
     env, wrapped, *_ = setup
-    monkeypatch.setenv("PUPPAX_SOA_ENV", "force")
-    assert rollout.supported(wrapped)
-    assert not rollout.supported(wrapped, collect_metrics=True)
-    assert not rollout.supported(env)  # unwrapped
-    monkeypatch.setenv("PUPPAX_FAST_LANE", "off")
-    assert not rollout.supported(wrapped)
-    monkeypatch.setenv("PUPPAX_FAST_LANE", "auto")
-    monkeypatch.setenv("PUPPAX_SOA_ENV", "auto")
-    # CPU backend + auto mode -> production gate closed
+    with backend.forced_path("xla"):
+        assert rollout.supported(wrapped)
+        assert not rollout.supported(wrapped, collect_metrics=True)
+        assert not rollout.supported(env)  # unwrapped
+    # nothing forced -> the per-env engine, no fast lane
     assert not rollout.supported(wrapped)
 
 
-def test_support_reason_strings(setup, monkeypatch):
-    """The lane decision must be explainable (VERDICT r3 weakness 3)."""
+def test_support_reason_strings(setup):
+    """The lane decision must be explainable."""
     env, wrapped, *_ = setup
-    monkeypatch.setenv("PUPPAX_SOA_ENV", "force")
+    with backend.forced_path("xla"):
+        ok, reason = rollout.support_reason(wrapped)
+        assert ok and reason == "emission as XLA ops on cpu"
+        ok, reason = rollout.support_reason(wrapped, collect_metrics=True)
+        assert not ok and "collect_metrics" in reason
+        ok, reason = rollout.support_reason(env)
+        assert not ok and "wrapper stack" in reason
     ok, reason = rollout.support_reason(wrapped)
-    assert ok and reason == "ok"
-    ok, reason = rollout.support_reason(wrapped, collect_metrics=True)
-    assert not ok and "collect_metrics" in reason
-    ok, reason = rollout.support_reason(env)
-    assert not ok and "wrapper stack" in reason
-    monkeypatch.setenv("PUPPAX_FAST_LANE", "off")
-    ok, reason = rollout.support_reason(wrapped)
-    assert not ok and "PUPPAX_FAST_LANE=off" in reason
-    monkeypatch.setenv("PUPPAX_FAST_LANE", "auto")
-    monkeypatch.setenv("PUPPAX_SOA_ENV", "auto")
-    ok, reason = rollout.support_reason(wrapped)
-    assert not ok and "not an accelerator" in reason
+    assert not ok and "per-env engine" in reason
 
 
 def test_noise_block_matches_sequential(setup):
     """draw_noise_block == T sequential vmapped _draw_step_noise calls,
     bit-exact, and the carried rng chain advances identically."""
     env, wrapped, *_ = setup
-    fl = rollout.FastLane(wrapped, mode="xla")
+    fl = rollout.FastLane(wrapped)
     state = _reset(wrapped)
     rngs = state.info["rng"]
 
@@ -139,7 +126,7 @@ def test_noise_block_matches_sequential(setup):
 def test_policy_rows_matches_flax(setup):
     """Feature-major policy apply == make_policy closure (same eps)."""
     env, wrapped, nets, policy_params, normalizer = setup
-    fl = rollout.FastLane(wrapped, mode="xla")
+    fl = rollout.FastLane(wrapped)
     obs_dim = env.observation_size
     rng = np.random.RandomState(0)
     obs = jnp.asarray(rng.uniform(-1, 1, (B, obs_dim)), jnp.float32)
@@ -156,7 +143,7 @@ def test_policy_rows_matches_flax(setup):
     lp_ref = dist.log_prob(logits, pre_ref)
 
     # fast lane rows apply on padded tiles
-    Bp = rollout.TILE_B
+    Bp = backend.padded(B)
     obs_p = jnp.pad(obs, [(0, Bp - B), (0, 0)], mode="edge")
     eps_p = jnp.pad(eps, [(0, Bp - B), (0, 0)], mode="edge")
     obs_t = obs_p.T.reshape(obs_dim, Bp // rollout.LANE, rollout.LANE)
@@ -174,14 +161,14 @@ def test_policy_rows_matches_flax(setup):
 
 @pytest.mark.slow
 def test_fast_unroll_matches_generate_unroll(setup):
-    """Full fast-lane unroll (xla-rows emission — the kernel's program as
-    plain XLA) vs the standard lane, same key: transitions + final state.
+    """Full fast-lane unroll (the wrapped emission as XLA ops) vs the
+    standard lane, same key: transitions + final state.
 
     Policy matmul layouts differ (feature-major vs batch-major), so
     actions carry ~1e-7 fp noise into the physics — comparisons use small
     tolerances rather than bit equality."""
     env, wrapped, nets, policy_params, normalizer = setup
-    fl = rollout.FastLane(wrapped, mode="xla")
+    fl = rollout.FastLane(wrapped)
     state = _reset(wrapped)
     key = jax.random.PRNGKey(11)
 
@@ -284,7 +271,7 @@ def test_fast_unroll_gait_and_privileged(setup):
         std=jnp.linspace(0.9, 1.1, env.observation_size),
     )
 
-    fl = rollout.FastLane(short, mode="xla")
+    fl = rollout.FastLane(short)
     assert fl.gait and fl.priv
     assert fl.obs_dim == env.observation_size
     state = _reset(short)
@@ -334,7 +321,7 @@ def test_fast_unroll_through_episode_reset(setup):
     and require the fast lane to reproduce the standard lane's restore."""
     env, wrapped_long, nets, policy_params, normalizer = setup
     short = wrappers.wrap_for_training(env, episode_length=3)
-    fl = rollout.FastLane(short, mode="xla")
+    fl = rollout.FastLane(short)
     state = _reset(short)
     key = jax.random.PRNGKey(5)
     policy = ppo_networks.make_inference_fn(nets)((normalizer, policy_params))
@@ -372,7 +359,7 @@ def test_stale_physics_state_sentinel(setup):
     """PhysicsState leaves the lane does not restore must be NaN-poisoned
     so a consumer reading them fails loudly (VERDICT r3 weakness 4)."""
     env, wrapped, nets, policy_params, normalizer = setup
-    fl = rollout.FastLane(wrapped, mode="xla")
+    fl = rollout.FastLane(wrapped)
     state = _reset(wrapped)
     got_final, _ = fl.unroll(
         state, (normalizer, policy_params), jax.random.PRNGKey(11), 2,
@@ -389,54 +376,6 @@ def test_stale_physics_state_sentinel(setup):
         assert bool(jnp.all(jnp.isnan(leaf))), f"{name} not poisoned"
 
 
-@pytest.mark.tpu
-@pytest.mark.slow
-def test_on_device_fast_lane():
-    """The compiled fast lane on the real chip (re-exec worker pattern,
-    tests/rollout_tpu_worker.py): privileged+gait kernel layout vs the
-    standard XLA lane through a mid-unroll auto-reset, the
-    kernel-under-shard_map lowering, and finite throughput. Covers the
-    widened first/aux kernel blocks on hardware (ADVICE r3 #3)."""
-    import json
-    import subprocess
-    import sys
-
-    worker = os.path.join(os.path.dirname(__file__), "rollout_tpu_worker.py")
-    penv = dict(os.environ)
-    penv.pop("XLA_FLAGS", None)
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    penv["PYTHONPATH"] = repo + os.pathsep + penv.get("PYTHONPATH", "")
-    proc = subprocess.run(
-        [sys.executable, worker], env=penv, capture_output=True,
-        text=True, timeout=2700,
-    )
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    if result["backend"] == "cpu":
-        pytest.skip("no accelerator present (worker resolved to cpu)")
-    assert "error" not in result, result
-    assert result["finite"]
-    # discrete fields agree exactly; continuous carry f32 layout noise
-    assert result["d_done"] == 0.0, result
-    assert result["d_trunc"] == 0.0, result
-    assert result["d_obs"] < 2e-2, result
-    assert result["d_rew"] < 1e-3, result
-    assert result["d_priv"] < 2e-2, result
-    assert result["d_final_q"] < 5e-3, result
-    # shard_map wrapping must not change the kernel math
-    assert result["d_sh_obs"] < 1e-5, result
-    assert result["d_sh_rew"] < 1e-5, result
-    assert result["d_sh_final_q"] < 1e-5, result
-    # the fused whole-unroll kernel must match the scan-lane kernel
-    # unroll (same emission + draws; HIGHEST policy dots in both)
-    assert result["d_fz_done"] == 0.0, result
-    assert result["d_fz_obs"] < 1e-4, result
-    assert result["d_fz_rew"] < 1e-4, result
-    assert result["d_fz_logp"] < 1e-3, result
-    assert result["d_fz_priv"] < 1e-4, result
-    assert result["d_fz_final_q"] < 1e-4, result
-
-
 def test_fast_unroll_sharded_matches_single(setup):
     """The shard_map lane on the 8-device virtual CPU mesh must reproduce
     the single-device fast lane env by env (VERDICT r3 item 3): same
@@ -444,8 +383,7 @@ def test_fast_unroll_sharded_matches_single(setup):
     transition assembly — no collectives. The step itself is
     rollout.mock_step_tiles (eager shard_map dispatches per-op across all
     mesh devices, making the real ~100k-op emission infeasible here);
-    kernel MATH parity is owned by the single-device xla-rows tests above
-    and the on-chip worker (test_on_device_fast_lane)."""
+    emission MATH parity is owned by the single-device tests above."""
     from jax.sharding import Mesh
 
     env, wrapped, nets, policy_params, normalizer = setup
@@ -453,7 +391,7 @@ def test_fast_unroll_sharded_matches_single(setup):
     key = jax.random.PRNGKey(11)
     T_short = 3
 
-    single = rollout.FastLane(wrapped, mode="xla")
+    single = rollout.FastLane(wrapped)
     single._step_tiles = rollout.mock_step_tiles(single)
     ref_final, ref_data = single.unroll(
         state, (normalizer, policy_params), key, T_short, jax.nn.elu
@@ -461,7 +399,7 @@ def test_fast_unroll_sharded_matches_single(setup):
 
     mesh = Mesh(np.array(jax.devices("cpu")), ("env",))
     assert mesh.size == 8
-    sharded = rollout.FastLane(wrapped, mode="xla", mesh=mesh)
+    sharded = rollout.FastLane(wrapped, mesh=mesh)
     sharded._step_tiles = rollout.mock_step_tiles(sharded)
     got_final, got_data = sharded.unroll(
         state, (normalizer, policy_params), key, T_short, jax.nn.elu
@@ -518,9 +456,8 @@ def test_fast_unroll_sharded_real_emission_truncated():
     chains, padded caches, and the complete REAL env layer (obs, rewards,
     termination, resample, episode/auto-reset wrapper algebra) through
     the true row plumbing. Measured compile+run: ~30 s ('smooth' and
-    deeper: >17 min — unaffordable). Full-op-count kernel correctness on
-    hardware is owned by tests/rollout_tpu_worker.py; full-program
-    multi-device PLUMBING by the mock-tile test above."""
+    deeper: >17 min — unaffordable). Full-program multi-device PLUMBING
+    is owned by the mock-tile test above."""
     from jax.sharding import Mesh
 
     from puppax.physics import soa
@@ -551,14 +488,14 @@ def test_fast_unroll_sharded_real_emission_truncated():
         key = jax.random.PRNGKey(11)
         T_short = 2
 
-        single = rollout.FastLane(wrapped, mode="xla")
+        single = rollout.FastLane(wrapped)
         ref_final, ref_data = single.unroll(
             state, (normalizer, params), key, T_short, jax.nn.elu
         )
 
         mesh = Mesh(np.array(jax.devices("cpu")), ("env",))
         assert mesh.size == 8
-        lane = rollout.FastLane(wrapped, mode="xla", mesh=mesh)
+        lane = rollout.FastLane(wrapped, mesh=mesh)
         run = jax.jit(
             lambda s_, k_: lane.unroll(
                 s_, (normalizer, params), k_, T_short, jax.nn.elu
@@ -610,7 +547,7 @@ def test_fast_unroll_matches_generate_unroll_with_dr(setup):
         randomization_fn=lambda model, rng: domain_randomize(model, rng),
         randomization_rng=rand_rng,
     )
-    fl = rollout.FastLane(wrapped, mode="xla")
+    fl = rollout.FastLane(wrapped)
     state = _reset(wrapped)
     key = jax.random.PRNGKey(11)
 

@@ -30,6 +30,54 @@ def test_checkpoint_step_layout_roundtrip(tmp_path):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b))
 
 
+def test_checkpoint_restores_train_state_for_resume(tmp_path):
+    """A full PPO TrainingState (dataclasses, optax state, int32 step
+    limbs, None leaves) saved as .npz restores into the same structure —
+    what ppo.train(resume=True) does with ``target=training_state``."""
+    import optax
+
+    from puppax.train import running_statistics
+    from puppax.train.networks import PPONetworkParams
+    from puppax.train.ppo import StepCount, TrainingState
+
+    net = make_ppo_networks(10, 4, policy_hidden_layer_sizes=(8,),
+                            value_hidden_layer_sizes=(8,))
+    params = PPONetworkParams(
+        policy=net.policy_network.init(jax.random.PRNGKey(0)),
+        value=net.value_network.init(jax.random.PRNGKey(1)),
+    )
+    opt = optax.adam(1e-3)
+    state = TrainingState(
+        optimizer_state=opt.init(params),
+        params=params,
+        normalizer_params=running_statistics.init_state(10).replace(
+            count=jnp.asarray(3.0), mean=jnp.arange(10.0)
+        ),
+        env_steps=StepCount.zero().add(12345),
+    )
+    ckpt = tmp_path / "state"
+    checkpoint.save_checkpoint(7, jax.device_get(state), ckpt)
+    assert (ckpt / "7" / "checkpoint.npz").is_file()
+
+    template = TrainingState(
+        optimizer_state=opt.init(params),
+        params=jax.tree_util.tree_map(jnp.zeros_like, params),
+        normalizer_params=running_statistics.init_state(10),
+        env_steps=StepCount.zero(),
+    )
+    back = checkpoint.restore_checkpoint(ckpt, target=template)
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(state)
+    for a, b in zip(jax.tree_util.tree_leaves(state), jax.tree_util.tree_leaves(back)):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert back.env_steps.to_int() == 12345
+
+    # a structure that does not match is refused, not silently mixed
+    wrong = template.replace(critic_normalizer_params=running_statistics.init_state(3))
+    with pytest.raises(ValueError, match="does not match"):
+        checkpoint.restore_checkpoint(ckpt, target=wrong)
+
+
 def test_metrics_logger_jsonl(tmp_path):
     path = str(tmp_path / "metrics.jsonl")
     logger = MetricsLogger(jsonl_path=path)

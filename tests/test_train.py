@@ -111,6 +111,40 @@ def test_networks_param_layout_matches_export_abi():
     assert "log_prob" in extras and "raw_action" in extras
 
 
+def test_mlp_params_and_apply():
+    """networks.MLP: {'params': {'hidden_i': {kernel (in, out), bias}}},
+    lecun-uniform kernels, zero biases, and apply == the dense layers
+    computed in float64 numpy."""
+    from puppax.train.networks import MLP
+
+    mlp = MLP(layer_sizes=(16, 8, 3), activation=jax.nn.elu)
+    params = mlp.init(jax.random.PRNGKey(1), jnp.zeros((1, 5)))
+    layers = params["params"]
+    assert list(layers) == ["hidden_0", "hidden_1", "hidden_2"]
+    fan_in = 5
+    for i, size in enumerate((16, 8, 3)):
+        k, b = layers[f"hidden_{i}"]["kernel"], layers[f"hidden_{i}"]["bias"]
+        assert k.shape == (fan_in, size) and k.dtype == jnp.float32
+        assert b.shape == (size,) and not np.any(np.asarray(b))
+        # lecun uniform: U(-sqrt(3/fan_in), sqrt(3/fan_in))
+        assert np.abs(np.asarray(k)).max() <= np.sqrt(3.0 / fan_in) + 1e-6
+        fan_in = size
+    x = np.random.RandomState(0).normal(size=(7, 5))
+    ref = x
+    for i in range(3):
+        ref = ref @ np.asarray(layers[f"hidden_{i}"]["kernel"], np.float64)
+        if i < 2:
+            ref = np.where(ref > 0, ref, np.expm1(ref))
+    got = mlp.apply(params, jnp.asarray(x, jnp.float32))
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-5)
+    # distinct keys give distinct initializations
+    other = mlp.init(jax.random.PRNGKey(2), jnp.zeros((1, 5)))
+    assert not np.allclose(
+        np.asarray(other["params"]["hidden_0"]["kernel"]),
+        np.asarray(layers["hidden_0"]["kernel"]),
+    )
+
+
 @pytest.mark.slow
 def test_ppo_train_smoke_multidevice():
     """End-to-end PPO on the real env over the virtual 8-device CPU mesh:
