@@ -1,115 +1,29 @@
-"""Where the batched env step runs, and how the env-step emission sees the batch.
+"""Where the batched env step runs: one decision, made from the JAX backend.
 
-One decision, made from the JAX backend (``step_path``):
+``step_path`` answers for ``gpu`` and ``cpu`` with ``"engine"``: the
+per-env XLA engine (physics/pipeline.py) vmapped over the env batch, the
+oracle-checked reference. Any other platform raises.
 
-* ``gpu`` and ``cpu``: ``"engine"`` — the per-env vmapped XLA engine
-  (physics/pipeline.py), the oracle-checked reference. On the H100 the
-  env-step emission (physics/soa.py + env/soa_env.py, ~83k operations
-  per step) did not finish compiling in bounded time, neither as one
-  Pallas-Triton kernel nor as plain XLA ops, while the engine's step
-  compiles in about a minute (PERF.md, "Findings");
-* ``"xla"`` — the emission as XLA ops, and with it the rollout fast lane
-  (env/rollout.py) — only where ``forced_path("xla")`` asks for it: the
-  CPU tests evaluate it eagerly op by op;
-* any other platform raises.
-
-Tile geometry of the emission: every per-env quantity is a row; a batch
-of rows is stored as ``(rows, B/LANE, LANE)``, the same bytes as
-``(rows, B)``, with batches padded to a multiple of ``LANE``.
-``run_rows`` runs a row program on that layout.
+A GPU step path faster than the engine, compile included, would be chosen
+here; PERF.md ("Findings") records why the fused env-step emission was not.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-from typing import Callable, List, Optional, Sequence
+from typing import Optional
 
 import jax
-import jax.numpy as jnp
 
-LANE = 128
-
-_MODES = ("engine", "xla")
-_forced: contextvars.ContextVar = contextvars.ContextVar(
-    "puppax_forced_step_path", default=None
-)
+PLATFORMS = ("gpu", "cpu")
 
 
 def step_path(platform: Optional[str] = None) -> str:
     """The batched step path for ``platform`` (default:
-    ``jax.default_backend()``): "engine" or "xla"."""
+    ``jax.default_backend()``)."""
     platform = platform or jax.default_backend()
-    if platform not in ("gpu", "cpu"):
+    if platform not in PLATFORMS:
         raise ValueError(
             f"puppax has no step path for platform {platform!r}: it runs on "
             "'gpu', and on 'cpu' for tests"
         )
-    return _forced.get() or "engine"
-
-
-@contextlib.contextmanager
-def forced_path(mode: str):
-    """Within the block, ``step_path`` returns ``mode``. For tests and
-    parity checks that run the lane the backend would not pick."""
-    if mode not in _MODES:
-        raise ValueError(f"unknown step mode {mode!r}; expected one of {_MODES}")
-    token = _forced.set(mode)
-    try:
-        yield
-    finally:
-        _forced.reset(token)
-
-
-def padded(B: int) -> int:
-    """Batch size rounded up to whole lanes."""
-    return -(-B // LANE) * LANE
-
-
-def to_tiles(x: jnp.ndarray, B: int) -> jnp.ndarray:
-    """(B, rows) -> (rows, B/LANE, LANE) tile layout."""
-    rows = x.shape[1] if x.ndim == 2 else 1
-    return x.reshape(B, rows).T.reshape(rows, B // LANE, LANE)
-
-
-def from_tiles(x: jnp.ndarray, B: int) -> jnp.ndarray:
-    """(rows, B/LANE, LANE) -> (B, rows)."""
-    return x.reshape(x.shape[0], B).T
-
-
-RowProgram = Callable[[List[list]], List[list]]
-
-
-def run_rows(
-    program: RowProgram,
-    ins: Sequence[jnp.ndarray],
-    out_rows: Sequence[int],
-    name: str,
-) -> List[jnp.ndarray]:
-    """Run ``program`` as XLA ops over tile-layout f32 inputs.
-
-    ``ins``: arrays ``(rows_i, Bp/LANE, LANE)``. ``program(rows)`` receives
-    one list of flat ``(Bp,)`` row values per input and returns one list
-    per output, ``out_rows[j]`` values long (Python floats allowed for
-    constants). Returns ``(out_rows[j], Bp/LANE, LANE)`` arrays.
-    """
-    shape = ins[0].shape[1:]
-    Bp = shape[0] * shape[1]
-    rows = [
-        [x[i].astype(jnp.float32).reshape(Bp) for i in range(x.shape[0])]
-        for x in ins
-    ]
-    outs = program(rows)
-    if [len(o) for o in outs] != list(out_rows):
-        raise ValueError(
-            f"{name}: program returned rows {[len(o) for o in outs]}, "
-            f"expected {list(out_rows)}"
-        )
-    ref = rows[0][0]
-
-    def fill(v):
-        return jnp.full(ref.shape, v, jnp.float32) if isinstance(v, (int, float)) else v
-
-    return [
-        jnp.stack([fill(v) for v in o]).reshape((len(o),) + shape) for o in outs
-    ]
+    return "engine"

@@ -135,9 +135,8 @@ class TrainConfig:
     value_hidden_layer_sizes: Tuple[int, ...] = (256, 256, 256, 256, 256)
     # matmul precision of the VALUE network's dots (highest|high|default;
     # on a GPU 'high'/'default' allow TF32). The policy stays pinned to
-    # HIGHEST (fast-lane + deployment-ABI parity); the value net has no
-    # such constraint and dominates the
-    # learner's FLOPs, so 'high'/'default' trade value-estimate precision
+    # HIGHEST (deployment-ABI parity); the value net has no such
+    # constraint and dominates the learner's FLOPs, so 'high'/'default' trade value-estimate precision
     # for SGD throughput (measure eval quality before adopting).
     value_precision: str = "highest"
     # Gather each SGD minibatch lazily inside the update scan instead of

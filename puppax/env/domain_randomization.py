@@ -60,10 +60,7 @@ def domain_randomize(
         friction_val = jax.random.uniform(
             key, (1,), minval=friction_range[0], maxval=friction_range[1]
         )
-        # ONE scalar broadcast to every geom's slide friction — the fused
-        # env kernel's privileged-friction row relies on this uniformity
-        # (soa_env._EnvStatic: pair_mu[0] == geom_friction[0, 0]); a
-        # per-geom draw here would silently break the kernel contract
+        # ONE scalar broadcast to every geom's slide friction
         geom_friction = geom_friction0.at[:, 0].set(friction_val)
 
         rng, key_kp, key_kd = jax.random.split(rng, 3)

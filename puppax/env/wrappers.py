@@ -103,24 +103,16 @@ class AutoResetWrapper(Wrapper):
     """brax-semantics auto-reset: restore the reset-time state on done.
 
     The FULL PhysicsState is restored with a tree-mapped ``where(done)``
-    (brax's approach). r2 tried a "lean" variant restoring only
-    qpos/qvel/obs on the theory that the derived leaves are recomputed
-    anyway — measured on the chip it HALVED flat env-step throughput
-    (3.2M vs 6.9M env-steps/s @16384; r4 bisect to 54e694e): the partial
-    ``.replace()`` breaks XLA's carry aliasing for the large contact/FK
-    buffers in the rollout scan, which costs far more than the where()
-    writes it saved. ``first_qpos``/``first_qvel``/``first_obs`` are kept
-    alongside ``first_pipeline_state`` as zero-copy aliases — the rollout
-    fast lane and the fused wrapped kernel consume exactly those rows
-    (puppax/env/rollout.py carry_from_state).
+    (brax's approach). Restoring only qpos/qvel/obs, on the theory that
+    the derived leaves are recomputed anyway, breaks XLA's carry aliasing
+    for the large contact/FK buffers in the rollout scan, which costs far
+    more than the where() writes it saves.
     """
 
     def reset(self, rng: jax.Array) -> State:
         state = self.env.reset(rng)
         info = dict(state.info)
         info["first_pipeline_state"] = state.pipeline_state
-        info["first_qpos"] = state.pipeline_state.qpos
-        info["first_qvel"] = state.pipeline_state.qvel
         info["first_obs"] = state.obs
         if "privileged_obs" in info:
             info["first_privileged_obs"] = info["privileged_obs"]

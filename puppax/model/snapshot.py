@@ -2,8 +2,8 @@
 
 ``mjcf.load_model`` compiles MJCF with ``mujoco`` when it is importable.
 Where it is not, it loads the snapshot of the same XML: the compiled
-``mujoco.MjModel`` tables that ``mjcf.put_model``, ``soa._Static`` and the
-env's name lookups read, stored at full (float64) precision in
+``mujoco.MjModel`` tables that ``mjcf.put_model`` and the env's name
+lookups read, stored at full (float64) precision in
 ``snapshots/<xml_key>.npz`` together with the XML text itself.
 ``ModelSnapshot`` exposes them under the ``MjModel`` attribute names, so
 both sources flow through the same code.

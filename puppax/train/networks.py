@@ -75,9 +75,8 @@ class MLP:
         for i in range(len(self.layer_sizes)):
             layer = layers[f"hidden_{i}"]
             # HIGHEST (default): full-f32 products, never TF32. The policy
-            # must compute identically on the standard lane, the rollout
-            # fast lane (rollout.policy_rows) and the C++ deployment
-            # runtime (f64 replay, export/params.py). The VALUE network
+            # must compute identically in training and in the C++
+            # deployment runtime (f64 replay, export/params.py). The VALUE network
             # has no such counterpart, so its precision is a tunable (see
             # make_ppo_networks value_precision).
             x = jnp.dot(x, layer["kernel"], precision=self.precision) + layer["bias"]
@@ -97,12 +96,6 @@ class PPONetworks:
     policy_network: FeedForwardNetwork = struct.field(pytree_node=False)
     value_network: FeedForwardNetwork = struct.field(pytree_node=False)
     action_distribution: NormalTanhDistribution = struct.field(pytree_node=False)
-    # the raw hidden activation fn (the rollout fast lane re-applies the
-    # policy MLP in feature-major layout and needs it explicitly;
-    # puppax/env/rollout.py)
-    policy_activation: ActivationFn = struct.field(
-        pytree_node=False, default=jax.nn.swish
-    )
 
 
 def _make_network(
@@ -170,7 +163,6 @@ def make_ppo_networks(
         policy_network=policy_network,
         value_network=value_network,
         action_distribution=dist,
-        policy_activation=activation,
     )
 
 

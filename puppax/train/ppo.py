@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from puppax import struct
+from puppax import backend, struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from puppax.env import wrappers
@@ -220,24 +220,13 @@ def train(
     obs_size = environment.observation_size
     action_size = environment.action_size
 
-    # rollout fast lane: tiles-resident unroll with the wrapped env kernel
-    # (puppax/env/rollout.py). On a multi-device mesh the unroll runs
-    # under shard_map over the env axis (each device steps its local env
-    # shard through its own kernel instance — envs are independent, no
-    # collectives inside the unroll).
-    from puppax.env import rollout as rollout_lib
-
-    fast_lane = None
-    lane_ok, lane_reason = rollout_lib.support_reason(env)
-    if lane_ok:
-        fast_lane = rollout_lib.FastLane(
-            env, mesh=device_mesh, axis_name=mesh_lib.ENV_AXIS
-        )
+    # the rollout steps envs on the per-env XLA engine; step_path raises
+    # on a platform puppax has no step path for (puppax/backend.py)
+    path = backend.step_path()
     if jax.process_index() == 0:
         print(
-            f"[puppax.ppo] rollout fast lane: "
-            f"{'ON' if lane_ok else 'OFF'} ({lane_reason}; "
-            f"devices={num_devices})",
+            f"[puppax.ppo] rollout step path: {path} on "
+            f"{jax.default_backend()!r} (devices={num_devices})",
             flush=True,
         )
 
@@ -413,9 +402,7 @@ def train(
             # gather happens PER MINIBATCH inside the scan instead of
             # materializing the full (M, T, mb, ...) shuffled tensor up
             # front. This skips the eager full-data take + reshape +
-            # swapaxes relayouts (the learner's top non-rollout cost in
-            # the PUPPAX_PPO_PROFILE breakdown: ~33 ms/update standalone
-            # at default sizes) at the price of M smaller gathers that
+            # swapaxes relayouts at the price of M smaller gathers that
             # XLA can overlap with the minibatch compute. Bit-identical
             # training trajectory to the eager path by construction
             # (tests/test_train.py::test_lazy_shuffle_bit_parity).
@@ -462,7 +449,7 @@ def train(
 
     def _rollout_scan(training_state, env_state, key_unroll):
         """The rollout half of a training step: num_unrolls_per_env
-        fast-lane (or standard) unrolls, returning (env_state, (U, T, B)
+        unrolls, returning (env_state, (U, T, B)
         transition stack)."""
         policy_params = (
             training_state.normalizer_params if normalize_observations else None,
@@ -473,19 +460,9 @@ def train(
         def roll(carry_, _unused):
             state, k = carry_
             k, k_unroll = jax.random.split(k)
-            if fast_lane is not None:
-                next_state, data = fast_lane.unroll(
-                    state,
-                    policy_params,
-                    k_unroll,
-                    unroll_length,
-                    ppo_network.policy_activation,
-                    difficulty=state.info.get("difficulty"),
-                )
-            else:
-                next_state, data = acting.generate_unroll(
-                    env, state, policy, k_unroll, unroll_length
-                )
+            next_state, data = acting.generate_unroll(
+                env, state, policy, k_unroll, unroll_length
+            )
             return (next_state, k), data
 
         (env_state, _), data = jax.lax.scan(

@@ -1,153 +1,29 @@
-"""The execution-path choice, the tile layout, and the two entry points of
-the env-step emission (puppax/backend.py, puppax/env/soa_env.py).
-
-The fast lane's wrapped step and the standard lane's env step run the
-same emission; where no episode ends they must agree exactly. The physics
-is cut after a phase (``soa.PHASE_LIMIT``) to keep the eager evaluation
-small.
-"""
+"""The step-path choice (puppax/backend.py)."""
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 
 from puppax import backend
-from puppax.configs import get_config
-from puppax.env import PupperV3Env, domain_randomization, rollout, soa_env, wrappers
-from puppax.physics import soa
 
 
 @pytest.mark.parametrize(
-    "platform, forced, expect",
+    "platform, expect",
     [
-        ("cpu", None, "engine"),
-        ("cpu", "xla", "xla"),
-        ("gpu", None, "engine"),
-        ("gpu", "xla", "xla"),
-        ("rocm", None, ValueError),
-        ("metal", "xla", ValueError),
+        ("cpu", "engine"),
+        ("gpu", "engine"),
+        ("rocm", ValueError),
+        ("metal", ValueError),
+        ("neuron", ValueError),
     ],
 )
-def test_step_path(platform, forced, expect):
-    def ask():
-        if forced is None:
-            return backend.step_path(platform)
-        with backend.forced_path(forced):
-            return backend.step_path(platform)
-
+def test_step_path(platform, expect):
     if expect is ValueError:
         with pytest.raises(ValueError, match=platform):
-            ask()
+            backend.step_path(platform)
     else:
-        assert ask() == expect
-    # the override never outlives its block
-    assert backend.step_path("cpu") == "engine"
+        assert backend.step_path(platform) == expect
 
 
-@pytest.mark.parametrize("mode", ["kernel", "fused"])
-def test_forced_path_rejects_unknown_mode(mode):
-    with pytest.raises(ValueError, match="unknown step mode"):
-        with backend.forced_path(mode):
-            pass
-
-
-@pytest.mark.parametrize("B", [300, 512])
-def test_tiles_roundtrip_and_padding(B):
-    Bp = backend.padded(B)
-    assert Bp % backend.LANE == 0 and B <= Bp < B + backend.LANE
-    x = jnp.arange(Bp * 3, dtype=jnp.float32).reshape(Bp, 3)
-    t = backend.to_tiles(x, Bp)
-    assert t.shape == (3, Bp // backend.LANE, backend.LANE)
-    np.testing.assert_array_equal(np.asarray(t[1]).reshape(-1), np.asarray(x[:, 1]))
-    np.testing.assert_array_equal(np.asarray(backend.from_tiles(t, Bp)), np.asarray(x))
-
-
-def test_run_rows_constants_and_row_counts():
-    x = jnp.arange(2 * 256, dtype=jnp.float32).reshape(2, 2, 128)
-
-    def program(blocks):
-        a, b = blocks[0]
-        return [[a + b, 2.5], [a * b]]
-
-    s, p = backend.run_rows(program, [x], [2, 1], name="t")
-    assert s.shape == (2, 2, 128) and p.shape == (1, 2, 128)
-    np.testing.assert_array_equal(np.asarray(s[0]), np.asarray(x[0] + x[1]))
-    np.testing.assert_array_equal(np.asarray(s[1]), np.full((2, 128), 2.5))
-    np.testing.assert_array_equal(np.asarray(p[0]), np.asarray(x[0] * x[1]))
-    with pytest.raises(ValueError, match="expected \\[2, 2\\]"):
-        backend.run_rows(program, [x], [2, 2], name="t")
-
-
-@pytest.fixture(scope="module")
-def cut_env():
-    """One-substep env, emission cut after 'compos'."""
-    soa.PHASE_LIMIT = "compos"
-    try:
-        env = PupperV3Env(
-            path=None, reward_config=get_config(), action_scale=0.75,
-            observation_history=2, environment_timestep=0.004,
-            physics_timestep=0.004,
-        )
-        yield env
-    finally:
-        soa.PHASE_LIMIT = None
-
-
-@pytest.mark.parametrize("B", [200, 256])
-def test_wrapped_step_matches_env_step(cut_env, B):
-    """soa_env.wrapped_step_tiles (fast lane) == soa_env.env_step_batched
-    (standard lane) on every env whose episode does not end, with DR model
-    rows and a batch padded to whole lanes (B=200 -> 256)."""
-    env = cut_env
-    wrapped = wrappers.wrap_for_training(
-        env, episode_length=8,
-        randomization_fn=domain_randomization.domain_randomize,
-        randomization_rng=jax.random.split(jax.random.PRNGKey(4), B),
-    )
-    state = jax.jit(wrapped.reset)(jax.random.split(jax.random.PRNGKey(3), B))
-    lane = rollout.FastLane(wrapped)
-    s, es = lane.s, lane.es
-    Bp = backend.padded(B)
-    carry = lane.carry_from_state(state)
-    assert carry["q"].shape[1] * backend.LANE == Bp
-    _, noise_t, _ = lane.draw_noise_block(state.info["rng"], 1)
-    action = jnp.tanh(
-        jax.random.normal(jax.random.PRNGKey(2), (B, env.action_size))
-    )
-    act_t = backend.to_tiles(
-        jnp.pad(action, [(0, Bp - B), (0, 0)], mode="edge"), Bp
-    )
-    q_w, v_w, env_w, wrap_w, aux_w = soa_env.wrapped_step_tiles(
-        s, es, env._n_substeps, 8, carry["q"], carry["v"], act_t,
-        carry["env"], noise_t[0], carry["dr"], carry["first"], carry["wrap"],
-    )
-
-    noise_rows = backend.from_tiles(noise_t[0], Bp)[:B]
-    env_rows = backend.from_tiles(carry["env"], Bp)[:B]
-    dr = soa.dr_inputs(wrapped.env._model, s, B)
-    ps = state.pipeline_state
-    qpos, qvel, caches, env_b = soa_env.env_step_batched(
-        s, es, ps.qpos, ps.qvel, action, env_rows, noise_rows, dr,
-        env._n_substeps,
-    )
-    assert qpos.shape == (B, s.nq) and env_b.shape == (B, es.nout_rows)
-    assert caches["xpos"].shape == (B, s.nbody * 3)
-
-    aux = backend.from_tiles(aux_w, Bp)[:B]
-    rows = soa_env.aux_row_map(es)
-    live = np.asarray(aux[:, rows["done"][0]]) < 0.5
-    assert live.sum() > B // 2
-    o0, n_obs = es.out_rows["obs_history"]
-    e0, _ = es.env_rows["obs_history"]
-    pairs = [
-        ("qpos", backend.from_tiles(q_w, Bp)[:B], qpos),
-        ("qvel", backend.from_tiles(v_w, Bp)[:B], qvel),
-        ("obs", backend.from_tiles(env_w, Bp)[:B, e0 : e0 + n_obs],
-         env_b[:, o0 : o0 + n_obs]),
-        ("reward", aux[:, rows["reward"][0]], env_b[:, es.out_rows["reward"][0]]),
-    ]
-    for name, got, ref in pairs:
-        got, ref = np.asarray(got)[live], np.asarray(ref)[live]
-        assert np.isfinite(got).all(), name
-        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6, err_msg=name)
+def test_step_path_defaults_to_the_running_backend():
+    assert jax.default_backend() in backend.PLATFORMS
+    assert backend.step_path() == backend.step_path(jax.default_backend())

@@ -58,7 +58,6 @@ def test_run_matrix_covers_baseline_operating_points(tmp_path):
     assert ("flat", 4096) in matrix
     # BASELINE config 3 (domain randomization) at both operating points
     assert ("dr", 4096) in matrix and ("dr", 16384) in matrix
-    # the training hot path + every collision-class terrain
-    assert ("train_unroll", 4096) in matrix
+    # every collision-class terrain
     for cfg in ("obstacles", "hfield", "capsule"):
         assert (cfg, 4096) in matrix

@@ -137,12 +137,8 @@ def test_capsule_drop_trajectory_matches_oracle(caps_oracle):
 
 
 def test_capsule_pupper_loads_and_steps(x64):
-    """The capsule-legged Pupper variant compiles, is IN the SoA kernel's
-    supported class (r2-end capsule narrowphases — the XLA path stepped
-    here is the f64 oracle leg), and its standing drop matches the C
-    engine."""
-    from puppax.physics import soa
-
+    """The capsule-legged Pupper variant compiles and its standing drop
+    on the XLA engine (f64) matches the C engine."""
     xml = _capsule_pupper_xml()
     mj = mujoco.MjModel.from_xml_string(xml)
     mj.opt.disableflags |= mujoco.mjtDisableBit.mjDSBL_WARMSTART
@@ -151,7 +147,6 @@ def test_capsule_pupper_loads_and_steps(x64):
     m = cm.robot.tree_replace({"opt.timestep": 0.004})
     m = m.replace(max_contact_points=64, max_geom_pairs=64)
     assert len(m.pairs_plane_capsule) == 4  # the new feet
-    assert soa.soa_supported(m)  # capsule narrowphases are in-kernel now
 
     qpos = np.array(mj.key_qpos[0])
     qpos[2] = 0.25
